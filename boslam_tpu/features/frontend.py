@@ -1,7 +1,7 @@
-"""ORB-style feature frontend: jnp reference path + Pallas TPU kernels.
+"""ORB-style feature frontend in plain jnp.
 
-TPU-native replacement for ``cv2.ORB_create(...).detectAndCompute`` (reference
-frame construction, SURVEY.md §2.2 row "OpenCV ORB"): 8-level image pyramid,
+Replacement for ``cv2.ORB_create(...).detectAndCompute`` (reference frame
+construction, SURVEY.md §2.2 row "OpenCV ORB"): 8-level image pyramid,
 FAST-9 corner test with SAD score, 3x3 NMS, per-level top-k with a fixed
 feature budget, intensity-centroid orientation, rotated-BRIEF 256-bit
 descriptors packed as uint32[8], and per-keypoint depth backprojection
@@ -10,23 +10,17 @@ descriptors packed as uint32[8], and per-keypoint depth backprojection
 Everything is static-shape: exactly ``cfg.orb.n_features`` keypoint slots per
 frame, invalid slots masked (SURVEY.md §7.0).
 
-The two hot stages are gather-free by design (VERDICT r2 item 1):
+The two hot stages avoid large gathers:
 
 * **FAST + NMS** accumulates the 16 circle offsets as static slices of a
   padded image into ReLU margin maps and uint32 contiguity bitmasks — no
-  [16, H, W] shifted stack.  ``_fast_rank_maps`` is the jnp reference;
-  ``ops.frontend_pallas.fast_rank_pallas`` is the same computation as one
-  row-tiled VMEM-resident kernel.
+  [16, H, W] shifted stack; XLA fuses the chain (``_fast_rank_maps``).
 * **Orientation + rotated BRIEF** samples each keypoint's 32x32 patch with
   the rotation quantized to ``N_ANGLE_BINS`` (the original ORB paper's 12°
   discretization): the 512 rotated sample positions per bin become constant
-  one-hot row/column selection tables, so descriptor sampling is two MXU
+  one-hot row/column selection tables, so descriptor sampling is two
   einsums over the patch tensor instead of a 512-way per-keypoint gather.
-  Patch extraction itself is a vmapped ``dynamic_slice`` (jnp) or a
-  scalar-prefetch Pallas copy kernel.
-
-Backend gating: ``cfg.orb.frontend_impl`` = "auto" (Pallas on TPU, jnp
-elsewhere) / "jnp" / "pallas".
+  Patch extraction itself is a vmapped ``dynamic_slice``.
 """
 
 from __future__ import annotations
@@ -118,8 +112,7 @@ _BOOST_CELL = float(1 << 18)  # per-cell best beats everything (>=1 kp/cell)
 
 
 def _fast_rank_maps(level, t_hi: float, t_lo: float, border: int):
-    """FAST-9 hi/lo score + 3x3 NMS + rank fusion (jnp reference path;
-    golden twin of ops.frontend_pallas.fast_rank_pallas).
+    """FAST-9 hi/lo score + 3x3 NMS + rank fusion.
 
     A pixel is a corner if >= 9 contiguous circle pixels are all brighter
     than c + t or all darker than c - t; the score is the summed intensity
@@ -282,8 +275,8 @@ def _brief_tables():
 
 
 def _extract_patches_jnp(img, ys, xs):
-    """[K, 32, 32] patches at (ys, xs) via vmapped dynamic_slice (jnp twin
-    of ops.frontend_pallas.extract_patches_pallas)."""
+    """[K, 32, 32] patches at (ys, xs) via vmapped dynamic_slice; centres
+    are clamped so every patch lies inside the image."""
     h, w = img.shape
     ys = jnp.clip(ys, HALF, h - HALF - 2)
     xs = jnp.clip(xs, HALF, w - HALF - 2)
@@ -301,18 +294,25 @@ def orient_and_brief(patches):
     The angle is continuous (atan2 of the patch moments — used by rotation-
     consistency matching); only the descriptor sampling quantizes it to
     N_ANGLE_BINS (the ORB paper's discretized steered BRIEF)."""
+    # HIGHEST precision: the one-hot contractions are gathers and must
+    # return the patch intensities exactly.  At the GPU default (TF32
+    # products) they come back rounded to 10 mantissa bits, which flips
+    # near-tied BRIEF tests: 13 % of keypoints differed from the CPU in
+    # at least one descriptor bit on the bench fixture on an H100.
+    hi = jax.lax.Precision.HIGHEST
     wx, wy = _orient_weights()
-    m10 = jnp.einsum("kij,ij->k", patches, jnp.asarray(wx))
-    m01 = jnp.einsum("kij,ij->k", patches, jnp.asarray(wy))
+    m10 = jnp.einsum("kij,ij->k", patches, jnp.asarray(wx), precision=hi)
+    m01 = jnp.einsum("kij,ij->k", patches, jnp.asarray(wy), precision=hi)
     angle = jnp.arctan2(m01, m10)
 
     row_oh, col_oh = _brief_tables()
     a = N_ANGLE_BINS
     b = jnp.mod(jnp.round(angle * (a / (2.0 * np.pi))).astype(jnp.int32), a)
     boh = jax.nn.one_hot(b, a, dtype=patches.dtype)          # [K, A]
-    rowsel = jnp.einsum("ka,asi->ksi", boh, jnp.asarray(row_oh))
-    colsel = jnp.einsum("ka,asj->ksj", boh, jnp.asarray(col_oh))
-    rows = jnp.einsum("ksi,kij->ksj", rowsel, patches)       # [K, 512, 32]
+    rowsel = jnp.einsum("ka,asi->ksi", boh, jnp.asarray(row_oh), precision=hi)
+    colsel = jnp.einsum("ka,asj->ksj", boh, jnp.asarray(col_oh), precision=hi)
+    rows = jnp.einsum("ksi,kij->ksj", rowsel, patches,
+                      precision=hi)                          # [K, 512, 32]
     vals = jnp.sum(colsel * rows, axis=-1)                   # [K, 512]
     v1, v2 = vals[:, :256], vals[:, 256:]
     bits = (v1 < v2).astype(jnp.uint32)                      # [K, 256]
@@ -329,25 +329,6 @@ def extract_features(gray, depth, cfg: SlamConfig) -> FrameFeatures:
     """gray: [H, W] f32 in [0, 255]; depth: [H, W] f32 metres (0 = invalid)."""
     orb = cfg.orb
     cam = cfg.camera
-    impl = orb.frontend_impl
-    if impl == "auto":
-        # Measured on v5e (tools/profile_frontend.py, RTT-cancelled scan
-        # timing): the Pallas patch-copy kernel is ~16x faster than the
-        # vmapped dynamic_slice path, but the Pallas FAST kernel LOSES to
-        # the XLA-fused jnp margin maps (0.66 vs 0.20 ms) — so "auto" on
-        # TPU mixes: jnp FAST + Pallas patches.  "pallas"/"jnp" force both
-        # substages onto one path (tests pin each for golden equality).
-        fast_impl = "jnp"
-        patch_impl = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    else:
-        fast_impl = patch_impl = impl
-    if "pallas" in (fast_impl, patch_impl):
-        from boslam_tpu.ops.frontend_pallas import (
-            extract_patches_pallas, fast_rank_pallas,
-        )
-
-        # Compiled on TPU; interpreter elsewhere (forced-"pallas" CPU tests).
-        interp = jax.default_backend() != "tpu"
     h, w = cam.height, cam.width
     shapes = pyramid_shapes(h, w, orb.n_levels, orb.scale_factor)
     budgets = distribute_features(orb.n_features, orb.n_levels, orb.scale_factor)
@@ -363,21 +344,11 @@ def extract_features(gray, depth, cfg: SlamConfig) -> FrameFeatures:
         # Adaptive FAST threshold (reference ORB per-cell retry at the min
         # threshold): hi + lo scores in one pass; hi corners outrank lo ones
         # so lo corners only fill weak cells.
-        if fast_impl == "pallas":
-            rank, raw_score = fast_rank_pallas(
-                level, t_hi, t_lo, _BOOST_HI, _LEVEL_BORDER, interpret=interp
-            )
-        else:
-            rank, raw_score = _fast_rank_maps(level, t_hi, t_lo, _LEVEL_BORDER)
+        rank, raw_score = _fast_rank_maps(level, t_hi, t_lo, _LEVEL_BORDER)
         k = budgets[l]
         ys, xs, top = _grid_select(rank, k, orb.grid_rows, orb.grid_cols)
         valid = top > 0
-        if patch_impl == "pallas":
-            patches = extract_patches_pallas(
-                blurred, ys, xs, half=HALF, interpret=interp
-            )
-        else:
-            patches = _extract_patches_jnp(blurred, ys, xs)
+        patches = _extract_patches_jnp(blurred, ys, xs)
         # Sub-pixel refinement: 1D quadratic fit on the raw FAST score along
         # each axis (integer detection adds +-0.5 px noise that dominates
         # pose accuracy on clean data).
@@ -401,7 +372,7 @@ def extract_features(gray, depth, cfg: SlamConfig) -> FrameFeatures:
         val_all.append(valid)
 
     # One batched orientation + descriptor pass over all levels' patches
-    # (the MXU einsums amortize across the whole frame budget).
+    # (the einsums amortize across the whole frame budget).
     angle, desc = orient_and_brief(jnp.concatenate(patch_all))
 
     uv = jnp.concatenate(uv_all)

@@ -1,6 +1,6 @@
 """SE(3) / quaternion geometry, fully batched jnp.
 
-TPU-native replacement for the Lie-group machinery the reference obtains from
+Replacement for the Lie-group machinery the reference obtains from
 g2o's ``VertexSE3Expmap`` / ``SE3Quat`` C++ types (SURVEY.md §2.2).  Poses are
 stored as flat ``[..., 7]`` arrays ``(qw, qx, qy, qz, tx, ty, tz)`` (Hamilton
 convention, unit quaternion) so the whole map is a dense array; conversions to

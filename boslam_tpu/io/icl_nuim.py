@@ -83,8 +83,6 @@ def sequence(
         raise OSError(
             f"{root}: neither rgb.txt (TUM-compatible) nor rgb/*.png (raw)"
         )
-    import cv2  # host-side decode only
-
     paired = [(idx, p, depths[idx]) for idx, p in rgbs if idx in depths]
     if limit is not None:
         paired = paired[:limit]
@@ -99,8 +97,7 @@ def sequence(
     if use_native and paired:
         from boslam_tpu.runtime.native import NativeLoader
 
-        rgb0 = cv2.imread(paired[0][1], cv2.IMREAD_COLOR)
-        h, w = rgb0.shape[:2]
+        w, h = tum.png_size(paired[0][1])
         loader = NativeLoader(
             [p for _, p, _ in paired], [d for _, _, d in paired],
             w, h, depth_factor,
@@ -111,6 +108,7 @@ def sequence(
         finally:
             loader.close()
         return
+    cv2 = tum.require_cv2()
     for idx, rgb_path, depth_path in paired:
         rgb = cv2.imread(rgb_path, cv2.IMREAD_COLOR)[:, :, ::-1].copy()
         d16 = cv2.imread(depth_path, cv2.IMREAD_UNCHANGED)

@@ -5,13 +5,14 @@ depth frames by nearest timestamp (<= ``max_dt``), yields
 ``(timestamp, rgb[H,W,3] u8, depth[H,W] f32 metres)`` and writes TUM-format
 trajectories (``timestamp tx ty tz qx qy qz qw``).
 
-Host-side, numpy-only (plus optional cv2/PIL for PNG decode); never on the
-device hot path.
+Host-side, numpy-only; PNGs are decoded by the native runtime or by cv2.
+Never on the device hot path.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -68,9 +69,30 @@ def associate(
     return pairs
 
 
-def _imread_gray_depth(rgb_path: str, depth_path: str, depth_factor: float):
-    import cv2  # host-side decode only
+def require_cv2():
+    """cv2 for the Python decode path, or an error naming both decoders."""
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError(
+            "decoding dataset PNGs needs the native runtime "
+            "(boslam_tpu/runtime, built by make with g++ and libpng) or "
+            "OpenCV (cv2); neither is available"
+        ) from None
+    return cv2
 
+
+def png_size(path: str) -> Tuple[int, int]:
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n":
+        raise OSError(f"{path}: not a PNG file")
+    return struct.unpack(">II", head[16:24])
+
+
+def _imread_gray_depth(rgb_path: str, depth_path: str, depth_factor: float):
+    cv2 = require_cv2()
     rgb = cv2.imread(rgb_path, cv2.IMREAD_COLOR)[:, :, ::-1].copy()
     d16 = cv2.imread(depth_path, cv2.IMREAD_UNCHANGED)
     depth = d16.astype(np.float32) / depth_factor
@@ -112,15 +134,9 @@ def sequence(
     if use_native and pairs:
         from boslam_tpu.runtime.native import NativeLoader
 
-        # Probe frame 0 for the image geometry (the C ABI decodes into
-        # caller-sized buffers), then stream everything through the
-        # prefetching worker pool.
-        rgb0, _ = _imread_gray_depth(
-            os.path.join(root, rgb_list[pairs[0][0]][1]),
-            os.path.join(root, depth_list[pairs[0][1]][1]),
-            depth_factor,
-        )
-        h, w = rgb0.shape[:2]
+        # Frame 0's geometry sizes the C ABI's decode buffers; everything
+        # then streams through the prefetching worker pool.
+        w, h = png_size(os.path.join(root, rgb_list[pairs[0][0]][1]))
         loader = NativeLoader(
             [os.path.join(root, rgb_list[i][1]) for i, _ in pairs],
             [os.path.join(root, depth_list[j][1]) for _, j in pairs],

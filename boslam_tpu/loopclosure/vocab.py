@@ -1,9 +1,9 @@
-"""Binary visual vocabulary + BoW database, TPU-native.
+"""Binary visual vocabulary + BoW database as dense arrays.
 
 Replaces DBoW3 (SURVEY.md §2.2 row "DBoW3"): instead of a C++ hierarchical
 k-means tree with an inverted index, the vocabulary is a flat table of
 ``vocab_size`` 256-bit words trained *online* by k-majority (binary k-means)
-on the map's own descriptors, word assignment is one MXU Hamming matmul, a
+on the map's own descriptors, word assignment is one Hamming matmul, a
 BoW vector is a segment-sum histogram, and database scoring is a dense
 ``[K, V] @ [V]`` matmul — O(1) index chasing replaced by batched linear
 algebra over the whole keyframe set.
@@ -61,7 +61,7 @@ def train_vocab(cfg: SlamConfig, loop: LoopState, map_state, iters: int = 3) -> 
     """k-majority vocabulary training on the map's keyframe descriptors.
 
     Init: a deterministic stride sample of valid descriptors.  Lloyd steps:
-    assign every descriptor to its nearest word (Hamming via MXU), recompute
+    assign every descriptor to its nearest word (Hamming via matmul), recompute
     each word as the bitwise majority of its cluster.  Empty clusters keep
     their previous word.  Then recompute all keyframe BoW vectors.
     """
@@ -131,7 +131,7 @@ def _bow_vector(cfg: SlamConfig, vocab, idf, desc, valid):
 
 
 def word_ids(vocab, desc, valid):
-    """[N] i32 vocabulary word per descriptor (argmin Hamming via MXU)."""
+    """[N] i32 vocabulary word per descriptor (argmin Hamming via matmul)."""
     d = hamming.hamming_matrix_mxu(desc, vocab)
     w = jnp.argmin(d, axis=1).astype(jnp.int32)
     return jnp.where(valid, w, -1)

@@ -45,8 +45,10 @@ def main() -> None:
                     help="run full-map BA after loop closures AND at exit")
     ap.add_argument("--distributed", action="store_true",
                     help="initialize the multi-host runtime "
-                         "(jax.distributed) and run global BA landmark-"
-                         "sharded over ALL visible devices; see "
+                         "(jax.distributed; fails without a cluster, so on "
+                         "one host set BOSLAM_COORDINATOR=localhost:PORT "
+                         "BOSLAM_NUM_PROCESSES=1) and run global BA "
+                         "landmark-sharded over ALL visible devices; see "
                          "parallel/distributed.py for the launch recipe")
     ap.add_argument("--viz", type=str, default=None,
                     help="render the final 3D map + trajectory to this PNG")

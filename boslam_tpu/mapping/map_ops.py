@@ -23,6 +23,7 @@ from boslam_tpu.mapping.map_state import (
     recompute_covis,
 )
 from boslam_tpu.matching import hamming
+from boslam_tpu.utils import scatter
 
 
 def _spanning_parent(state: MapState, slot) -> jnp.ndarray:
@@ -385,10 +386,8 @@ def fuse_new_keyframe(
         keep_exist = n_obs[jnp.clip(existing, 0, P - 1)] >= n_obs[jnp.clip(cand_pt, 0, P - 1)]
         src = jnp.where(keep_exist, cand_pt, existing)
         dst = jnp.where(keep_exist, existing, cand_pt)
-        src = jnp.where(dup & ok_nb, src, P)
-        remap = remap.at[jnp.clip(src, 0, P)].set(
-            jnp.where(src < P, dst, remap[jnp.clip(src, 0, P)]), mode="drop"
-        )
+        src = jnp.where(dup & ok_nb, src, P + 1)  # P + 1: dropped
+        remap = scatter.set_last(remap, src, dst)
         return (obs_tab, remap), None
 
     remap0 = jnp.concatenate([jnp.arange(P, dtype=jnp.int32), jnp.array([-1], jnp.int32)])
@@ -424,8 +423,8 @@ def refresh_point_model(
     observations; normal = mean viewing direction; min/max view distance
     from the observing octave).
 
-    TPU-first: instead of per-point observation lists, flatten the window's
-    [W, N] observation table, compute ONE [M, M] MXU Hamming matrix over
+    Dense form: instead of per-point observation lists, flatten the window's
+    [W, N] observation table, compute ONE [M, M] Hamming matrix over
     all window descriptors, mask it by same-point, and pick each point's
     medoid with segment reductions — no gather chasing, fixed shapes.
     """
@@ -463,7 +462,7 @@ def refresh_point_model(
     dvec = cam_w[:, None, :] - state.pt_xyz[jnp.clip(obs, 0, P - 1)]
     dist = jnp.linalg.norm(dvec, axis=-1)                     # [W, N]
     vdir = dvec / jnp.maximum(dist, 1e-9)[..., None]
-    dir_sum = jax.ops.segment_sum(
+    dir_sum = scatter.segment_sum(
         (vdir * valid[..., None]).reshape(-1, 3), pid, num_segments=P + 1
     )[:P]
     new_dir = jnp.where(has[:, None], dir_sum, state.pt_dir_sum)

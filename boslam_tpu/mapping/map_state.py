@@ -1,6 +1,6 @@
 """The global map as a fixed-capacity pytree of arrays.
 
-TPU-native redesign of the reference's ``covisibility_graph.py``
+Array-native redesign of the reference's ``covisibility_graph.py``
 (``CovisibilityGraph`` / ``KeyFrame`` / ``MapPoint`` object graph with locks,
 SURVEY.md §2.1): here the map is pure data — dense arrays with validity masks
 and a free-list allocation discipline (SURVEY.md §7.0), so every mutation is a
@@ -10,7 +10,7 @@ eliminated by construction (SURVEY.md §5.2).
 Canonical observation structure: ``kf_obs_pt[k, s]`` = map-point id observed
 at keypoint slot ``s`` of keyframe ``k`` (-1 if none).  Covisibility weights,
 observation counts, and the spanning tree are derived from it — the
-covisibility matrix is one MXU matmul of the keyframe/point incidence matrix.
+covisibility matrix is one matmul of the keyframe/point incidence matrix.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ def incidence(state: MapState) -> jnp.ndarray:
     """Keyframe x point observation incidence O[k, p] in {0, 1} (bf16).
 
     Built by scatter from the canonical kf_obs_pt table; the covisibility
-    matrix is then O @ O^T — one MXU matmul instead of the reference's
+    matrix is then O @ O^T — one matmul instead of the reference's
     per-point Python dict walks.
     """
     K, N = state.kf_obs_pt.shape

@@ -3,7 +3,7 @@
 
 The reference restricts candidate pairs to keypoints falling in the same
 DBoW3 vocabulary node, turning an O(N·M) search into per-bucket searches.
-TPU-first form: compute both sides' word ids (one MXU Hamming matmul against
+Dense form: compute both sides' word ids (one Hamming matmul against
 the vocabulary each) and use word equality as the admissibility mask of the
 full distance matrix — same pruning semantics, still one batched matmul, no
 index chasing.

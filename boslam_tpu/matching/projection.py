@@ -2,8 +2,8 @@
 
 Reference ``search_by_projection`` (SURVEY.md §2.1 "Matcher"): project a map
 point into the frame with the predicted pose, then search keypoints within a
-radius scaled by octave.  TPU-first redesign: instead of per-point candidate
-lists, compute the full keypoints x points Hamming matrix on the MXU and mask
+radius scaled by octave.  Dense redesign: instead of per-point candidate
+lists, compute the full keypoints x points Hamming matrix as a matmul and mask
 it by the projection window — one batched op over the whole map, no gather
 chasing (SURVEY.md §7.1 step 3).
 """

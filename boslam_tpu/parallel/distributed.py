@@ -2,12 +2,12 @@
 backend"; BASELINE.json >=75%-at-2-hosts scaling target).
 
 The reference's communication backend is Python queues + a lock-protected
-shared map on ONE machine (SURVEY.md §2.3).  The TPU-native equivalent is
-the JAX multi-controller runtime: every host runs the same program, calls
+shared map on ONE machine (SURVEY.md §2.3).  The JAX equivalent is the
+multi-controller runtime: every host runs the same program, calls
 ``jax.distributed.initialize()``, and afterwards ``jax.devices()`` spans the
-whole pod/cluster — meshes built from it (parallel/mesh.make_mesh) place
-``psum``/``all_gather`` collectives on ICI within a slice and DCN across
-slices, with no hand-written networking (SURVEY.md §5.8).
+whole cluster — meshes built from it (parallel/mesh.make_mesh) get their
+``psum``/``all_gather`` collectives from XLA (NCCL on GPUs), with no
+hand-written networking (SURVEY.md §5.8).
 
 ## Launch recipe
 
@@ -20,10 +20,10 @@ One process per host, all started with the same command:
     BOSLAM_COORDINATOR=host0:8476 BOSLAM_NUM_PROCESSES=2 BOSLAM_PROCESS_ID=1 \
         python -m boslam_tpu.main --tum ... --distributed --global-ba
 
-On Cloud TPU pod slices the three variables can be omitted entirely
-(``BOSLAM_DISTRIBUTED=1`` or the CLI ``--distributed`` flag is enough):
-``jax.distributed.initialize()`` auto-detects the coordinator and process
-topology from the TPU metadata server, as it does under SLURM/OpenMPI.
+Under a cluster manager JAX can detect (SLURM, OpenMPI) the three variables
+can be omitted (``BOSLAM_DISTRIBUTED=1`` or the CLI ``--distributed`` flag
+is enough): ``jax.distributed.initialize()`` reads the coordinator and
+process topology from it.
 
 Single-process smoke: initialize(num_processes=1) exercises the same code
 path (coordinator service + barrier) without a cluster — this is what the
@@ -52,9 +52,10 @@ def maybe_initialize(force: bool = False) -> bool:
     or any of BOSLAM_COORDINATOR / BOSLAM_DISTRIBUTED=1 set in the
     environment.  With BOSLAM_COORDINATOR set, the explicit
     (coordinator_address, num_processes, process_id) triple is used;
-    otherwise ``jax.distributed.initialize()`` auto-detects (TPU pod
-    metadata, SLURM, OpenMPI).  Returns True iff the runtime is (now)
-    initialized.
+    otherwise ``jax.distributed.initialize()`` auto-detects (SLURM,
+    OpenMPI).  Returns True iff the runtime is (now) initialized.  A
+    failed initialization raises under ``force=True``; when only the
+    environment asked, it is reported and the run stays single-process.
     """
     global _initialized
     if _initialized:
@@ -73,7 +74,9 @@ def maybe_initialize(force: bool = False) -> bool:
         else:
             jax.distributed.initialize()
         _initialized = True
-    except Exception as e:  # pragma: no cover - auto-detect absent locally
+    except Exception as e:
+        if force:
+            raise
         print(f"[distributed] initialize failed ({e}); "
               "continuing single-process", file=sys.stderr)
         return False

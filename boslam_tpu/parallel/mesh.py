@@ -7,7 +7,9 @@ The engine's two parallel axes:
   devices, the reference's "tensor parallel" analog (SURVEY.md §2.3).
 
 Collectives (psum over Schur blocks, all_gather of camera systems) are
-emitted by XLA from shard_map code; on hardware they ride ICI.
+emitted by XLA from shard_map code; on GPUs XLA hands them to NCCL.  The
+mesh follows the algorithm, not a physical topology: the cards of one host
+reach each other all to all over NVLink.
 """
 
 from __future__ import annotations

@@ -98,14 +98,15 @@ def make_batched_events(cfg: SlamConfig, mesh: Mesh):
         )
         ok, t_rel, n_inl, midx, mok = verify_loop(cfg, ms, kf_id, cand, key)
         ok = ok & loop_do & (cand >= 0)
-        new_ms, pose_kf = close_loop_update(
-            cfg, ms, kf_id, jnp.clip(cand, 0, None), t_rel, midx, mok
+        new_ms, pose_cw = close_loop_update(
+            cfg, ms, kf_id, jnp.clip(cand, 0, None), t_rel, midx, mok,
+            tr.pose_cw, tr.last_kf,
         )
         ms = jax.tree_util.tree_map(
             lambda a, b: jnp.where(ok, a, b), new_ms, ms
         )
         tr = tr._replace(
-            pose_cw=jnp.where(ok, pose_kf, tr.pose_cw),
+            pose_cw=jnp.where(ok, pose_cw, tr.pose_cw),
             velocity=jnp.where(ok, se3.pose_identity(), tr.velocity),
         )
         return ms, ls, tr, ok, n_inl

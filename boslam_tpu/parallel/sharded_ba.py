@@ -4,7 +4,7 @@ The BASELINE north-star's distributed design: "distributed BA performing
 Schur-complement reduction of per-shard Hessian blocks via psum/all-gather
 collectives" — landmark blocks and their observation edges are sharded over
 the mesh axis ``pt``; camera poses are replicated.  Each shard assembles its
-partial camera-block contributions locally; one ``psum`` over ICI reduces
+partial camera-block contributions locally; one ``psum`` reduces
 the tiny [KO*6, KO*6] Schur system; every device solves it redundantly
 (cheaper than a gather/scatter round-trip) and back-substitutes its own
 landmark shard.  Cross-shard covisibility needs no halo exchange because an
@@ -118,7 +118,7 @@ def make_sharded_ba(cfg: SlamConfig, mesh: Mesh, n_iters: int = 10):
             Hcc, bc, S_cross, bs_corr, Hpp_inv, A, bp = _local_partials(
                 cfg, poses, pts, edges, opt_cam_mask, lam
             )
-            # THE collective: reduce per-shard Schur contributions over ICI.
+            # THE collective: reduce per-shard Schur contributions.
             Hcc, bc, S_cross, bs_corr = jax.lax.psum(
                 (Hcc, bc, S_cross, bs_corr), "pt"
             )

@@ -74,7 +74,7 @@ def make_sharded_global_ba(cfg: SlamConfig, mesh: Mesh, lm_iters: int,
                 -jnp.einsum("eri,er->ei", Jc, w[:, None] * r), seg_c,
                 num_segments=C + 1,
             )[:C]
-            # THE collective: camera-side normal equations over ICI.
+            # THE collective: camera-side normal equations.
             Hcc, bc = jax.lax.psum((Hcc, bc), "pt")
             Hpp = _point_sum(
                 sched, jnp.einsum("eri,erj->eij", J_pt, wJp)

@@ -5,9 +5,9 @@
 // that decodes TUM RGBD frames (8-bit RGB PNG -> BT.601 grayscale float,
 // 16-bit depth PNG -> metres float) off the critical path, with a worker
 // pool and a bounded ring buffer so the host loop never blocks on disk or
-// zlib while the TPU is tracking the previous frame.
+// zlib while the device is tracking the previous frame.
 //
-// C ABI for ctypes (no pybind11 in this image).  Build: make -C runtime.
+// C ABI for ctypes.  Build: make -C runtime (native.py does so at first use).
 
 #include <png.h>
 

@@ -1,8 +1,8 @@
 """ctypes bindings for the native dataset runtime (runtime/loader.cpp).
 
-Builds the shared library on first use (g++ via make); callers fall back to
-the pure-Python cv2 path in io/tum.py when the toolchain or libpng is
-missing.  No pybind11 in this image — plain C ABI + ctypes.
+Builds the shared library from loader.cpp on first use (g++ via make; the
+library is not kept in git); callers fall back to the pure-Python cv2 path
+in io/tum.py when the toolchain or libpng is missing.  Plain C ABI + ctypes.
 """
 
 from __future__ import annotations
@@ -26,11 +26,16 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     _tried = True
     if not os.path.exists(_SO):
+        # Build under a private name, then rename: concurrent first uses
+        # (e.g. test workers) never load a half-written library.
+        tmp = f"{_SO}.{os.getpid()}.tmp"
         try:
             subprocess.run(
-                ["make", "-C", _DIR, "-s"], check=True, capture_output=True
+                ["make", "-C", _DIR, "-s", f"OUT={tmp}"], check=True,
+                capture_output=True,
             )
-        except Exception:
+            os.replace(tmp, _SO)
+        except (OSError, subprocess.CalledProcessError):
             return None
     try:
         lib = ctypes.CDLL(_SO)

@@ -7,25 +7,23 @@ complement is applied *matrix-free* inside preconditioned conjugate gradient
 
     S x = (H_cc + lam D) x − W H_pp^-1 W^T x
 
-**Scatter-free reductions (r4 redesign).**  TPU scatter-adds run at ~1 GB/s
-effective — a 131k-edge `segment_sum` costs ~1.7 ms, and the original
-operator paid three of them per CG application.  Both reduction directions
-are restructured around the edge list's layout instead:
+**Scatter-free reductions (r4 redesign).**  The original operator paid
+three scatter-add `segment_sum`s over the 131k edges per CG application;
+both reduction directions are restructured around the edge list's layout
+instead:
 
 - *Camera side*: the global edge list IS the flattened ``[K, N]`` keypoint
   table (one edge per keyframe x keypoint slot), so camera reductions are a
   reshape + dense sum over the N axis — no scatter, ~free.
 - *Point side*: edges are pre-sorted by point id ONCE per solve; a sorted
   segment sum is then an exclusive ``cumsum`` + two boundary gathers
-  (``cs[ends] - cs[starts]``) — ~2x faster than scatter, and the sort is
-  amortized over every LM iteration x CG application.
+  (``cs[ends] - cs[starts]``), and the sort is amortized over every LM
+  iteration x CG application.
 
 **Adaptive inner solves.**  The CG loop exits on a relative-residual
 tolerance (inexact-Newton forcing) instead of always running its full
-iteration cap — on the 50k-landmark benchmark that cuts the matvec count
-~3x at bit-identical converged cost (9784) and pose error.  (An exact
-Schur-diagonal preconditioner was also measured and bought nothing over
-damped-Hcc block-Jacobi at equal CG budgets; see ``_assemble``.)
+iteration cap.  (An exact Schur-diagonal preconditioner bought nothing
+over damped-Hcc block-Jacobi at equal CG budgets; see ``_assemble``.)
 
 Landmark back-substitution is the same shard-local formula as local BA.
 """

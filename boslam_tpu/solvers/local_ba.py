@@ -6,7 +6,7 @@ second ring; assemble the block-sparse normal equations, eliminate landmark
 blocks via the Schur complement, solve the reduced camera system, back-
 substitute, inside an accept/reject LM damping loop.
 
-TPU-first layout (SURVEY.md §7.1 step 5):
+Static dense layout (SURVEY.md §7.1 step 5):
 - static window: N_OPT optimized + N_FIX fixed cameras, compacted active
   landmark set of MAX_LOCAL points (jnp.nonzero with static size);
 - the edge set is exactly one edge per (window camera, local point), so it
@@ -14,8 +14,8 @@ TPU-first layout (SURVEY.md §7.1 step 5):
   Hcc, Hpp, bc, bp and the camera-point coupling A [L, N_OPT, 6, 3] — is a
   plain einsum reduction, with NO scatters or segment_sums inside the LM
   loop (one inversion scatter at build time);
-- the Schur reduction  S = H_cc - sum_p A H_pp^-1 A^T  is two einsums on
-  the MXU; the reduced system is a dense (N_OPT*6)^2 Cholesky.
+- the Schur reduction  S = H_cc - sum_p A H_pp^-1 A^T  is two einsums
+  (batched matmuls); the reduced system is a dense (N_OPT*6)^2 Cholesky.
 """
 
 from __future__ import annotations
@@ -109,7 +109,10 @@ def _build_problem(cfg: SlamConfig, state: MapState, center):
 
     # Invert each camera's observation row into pt_slot[c, l] = keypoint
     # slot of local point l in camera c (-1 if unobserved): ONE scatter at
-    # build time; the LM loop then runs scatter-free.
+    # build time; the LM loop then runs scatter-free.  A point can sit in
+    # two slots of one row; the scatter keeps the higher slot by max, which
+    # is order-independent (a plain set would keep an arbitrary one on a
+    # GPU).
     C, N = cam_ids.shape[0], state.kf_obs_pt.shape[1]
     obs = state.kf_obs_pt[cam_ids]                          # [C, N]
     pl = inv[jnp.clip(obs, 0, P)]                           # [C, N] local pt
@@ -122,7 +125,7 @@ def _build_problem(cfg: SlamConfig, state: MapState, center):
     tgt = jnp.where(ok, pl, L)
     pt_slot = jnp.full((C, L + 1), -1, jnp.int32).at[
         jnp.broadcast_to(jnp.arange(C)[:, None], (C, N)), tgt
-    ].set(
+    ].max(
         jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32)[None, :], (C, N)),
         mode="drop",
     )[:, :L]                                                # [C, L]
@@ -209,9 +212,10 @@ def _lm_solve_step(cfg: SlamConfig, poses, pts, edges: DenseEdges,
     Gp = J_pt * sw[..., None]                                # [C, L, 3, 3]
     rw = r * sw                                              # [C, L, 3]
 
-    # Normal-equation contractions run at HIGHEST matmul precision: the TPU
-    # default (bf16 multiplies) can leave S = Hcc - S_cross slightly
-    # indefinite after cancellation, and Cholesky then yields silent NaNs.
+    # Normal-equation contractions run at HIGHEST matmul precision: a
+    # reduced-precision default (bf16 or TF32 multiplies) can leave
+    # S = Hcc - S_cross slightly indefinite after cancellation, and Cholesky
+    # then yields silent NaNs.
     hi = jax.lax.Precision.HIGHEST
     Hcc = jnp.einsum("clri,clrj->cij", Gc, Gc, precision=hi)  # [KO, 6, 6]
     bc = -jnp.einsum("clri,clr->ci", Gc, rw[:KO], precision=hi)  # [KO, 6]
@@ -226,7 +230,7 @@ def _lm_solve_step(cfg: SlamConfig, poses, pts, edges: DenseEdges,
     )[..., None, :] * eye3) + 1e-8 * eye3
     Hpp_inv = inv3x3(Hpp_d)
 
-    # Schur reduction on the MXU.
+    # Schur reduction.
     M = jnp.einsum("pkis,pst->pkit", A, Hpp_inv, precision=hi)  # [L, KO, 6, 3]
     S_cross = jnp.einsum("pait,pbjt->aibj", M, A, precision=hi)  # [KO,6,KO,6]
     S = jnp.zeros((KO, 6, KO, 6))

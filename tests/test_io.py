@@ -203,3 +203,22 @@ def test_tum_sequence_native_loader_matches_cv2():
         assert gray.ndim == 2 and gray.dtype == np.float32
         np.testing.assert_allclose(gray, rgb_to_gray(rgb), atol=0.51)
         np.testing.assert_allclose(depth_a, depth_b, atol=1e-6)
+
+
+def test_tum_loader_without_any_decoder_names_both(monkeypatch):
+    """With neither the native decoder nor cv2, loading fails with an error
+    that names both, not with a bare ImportError."""
+    import os
+    import sys
+
+    import pytest
+
+    from boslam_tpu.runtime import native
+
+    root = os.path.join(os.path.dirname(__file__), "data", "tum_mini")
+    monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 -> ImportError
+    monkeypatch.setattr(native, "available", lambda: False)
+    assert tum.png_size(os.path.join(root, "rgb", "0.000000.png")) == (160, 120)
+    for mode in (False, None):
+        with pytest.raises(RuntimeError, match="native runtime.*cv2"):
+            next(iter(tum.sequence(root, native=mode)))

@@ -244,18 +244,20 @@ def test_cull_keyframe_rehomes_spanning_and_loop_edges():
             assert sp_j[c] == 0, f"child {c} still parented to reused slot"
 
 
+WHOLE_MAP_P = 32768  # a whole-map match at relocalization scale
+
+
 def test_relocalize_global_path_large_map():
-    """At >= FUSED_MATCH_MIN_POINTS the relocalization whole-map match
-    routes through the streaming Pallas matcher (VERDICT r2 item 10: the
-    kernel gets a live consumer at the shapes where it wins); behavior must
-    match the jnp route — relocalization recovers the pose on a big map."""
+    """Relocalization before the vocabulary exists matches the frame
+    against the whole 32768-point map (VERDICT r2 item 10) and recovers the
+    pose."""
     from boslam_tpu.config import MapConfig
     from boslam_tpu.loopclosure import empty_loop_state
     from boslam_tpu.tracking import relocalize
-    from boslam_tpu.tracking.tracker import FUSED_MATCH_MIN_POINTS, ST_OK
+    from boslam_tpu.tracking.tracker import ST_OK
 
     cfg = CFG.replace(
-        map=MapConfig(max_keyframes=16, max_points=FUSED_MATCH_MIN_POINTS)
+        map=MapConfig(max_keyframes=16, max_points=WHOLE_MAP_P)
     )
     pose = np.array([1.0, 0, 0, 0, 0.05, 0.0, 0.1])
     rgb, depth = synthetic.render_frame(CAM, np.array([1.0, 0, 0, 0, 0, 0, 0]))
@@ -277,6 +279,44 @@ def test_relocalize_global_path_large_map():
     assert int(new_track.status) == ST_OK
     est = np.asarray(se3.pose_inv(new_track.pose_cw))
     np.testing.assert_allclose(est[4:], pose[4:], atol=0.02)
+
+
+def test_global_match_whole_map_is_plain_jnp():
+    """The tracker's whole-map match at P=32768 lowers to plain XLA ops (no
+    custom kernel) and equals the same pipeline built on the exact popcount
+    Hamming matrix."""
+    from boslam_tpu.config import MapConfig
+    from boslam_tpu.matching import hamming, rotation
+    from boslam_tpu.tracking.tracker import global_match
+
+    cfg = CFG.replace(map=MapConfig(max_keyframes=16, max_points=WHOLE_MAP_P))
+    rgb, depth = synthetic.render_frame(CAM, np.array([1.0, 0, 0, 0, 0, 0, 0]))
+    f = extract(rgb, depth)
+    rng = np.random.default_rng(3)
+    desc = rng.integers(0, 2**32, (WHOLE_MAP_P, 8), dtype=np.uint32)
+    src = rng.integers(0, f.desc.shape[0], 2048)
+    desc[:2048] = np.asarray(f.desc)[src]
+    angle = np.zeros(WHOLE_MAP_P, np.float32)
+    angle[:2048] = np.asarray(f.angle)[src]
+    st = empty_map(cfg)._replace(
+        pt_desc=jnp.asarray(desc), pt_angle=jnp.asarray(angle),
+        pt_valid=jnp.asarray(rng.random(WHOLE_MAP_P) < 0.9),
+    )
+    jaxpr = str(jax.make_jaxpr(lambda f, s: global_match(cfg, f, s))(f, st))
+    assert "pallas_call" not in jaxpr and "custom_call" not in jaxpr
+    idx, ok = jax.jit(global_match, static_argnums=0)(cfg, f, st)
+
+    ridx, rok, _ = hamming.match_top2(
+        hamming.hamming_matrix(f.desc, st.pt_desc), f.valid & f.has_depth,
+        st.pt_valid, max_dist=cfg.matcher.hamming_low, ratio=0.85,
+        mutual=True,
+    )
+    rok = rotation.rotation_consistency(
+        f.angle, st.pt_angle[jnp.clip(ridx, 0, WHOLE_MAP_P - 1)], rok)
+    assert int(jnp.sum(rok)) > 20
+    np.testing.assert_array_equal(np.asarray(ok), np.asarray(rok))
+    np.testing.assert_array_equal(
+        np.asarray(idx), np.where(np.asarray(rok), np.asarray(ridx), -1))
 
 
 def test_viewing_model_gates_projection_search():

@@ -1,4 +1,4 @@
-"""Hamming matcher unit tests (exact vs numpy reference, MXU path vs exact)."""
+"""Hamming matcher unit tests (exact vs numpy reference, bf16 bit-matmul path vs exact)."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -3,9 +3,7 @@ groundtruth on the hall-clover bench fixture.
 
 The loop edge is the single most influential measurement in the engine
 (the pose graph rigidly trusts it), so its error against the synthetic
-groundtruth is the sharpest check on the verification pipeline: measured
-r5 on the v5e, the surviving closure's T_rel error is ~26 mm / 0.08 deg
-at hall scale (README "Loop-edge accuracy" row).
+groundtruth is the sharpest check on the verification pipeline.
 
 Run: PYTHONPATH=<repo root> python tools/loop_accuracy.py [--frames 450]
 """

@@ -1,7 +1,7 @@
 """Measure the dense pose-graph solve's scale envelope (VERDICT r4 item 9).
 
 The essential-graph optimizer assembles dense [K*6, K*6] normal equations
-(solvers/pose_graph.py): fine on the MXU at the engine's K=256 cap, but the
+(solvers/pose_graph.py): fine at the engine's K=256 cap, but the
 reference family runs thousands of keyframes on fr2-scale sequences.  This
 tool times the solve at K = 256 / 512 / 1024 (wall + per-iteration, on the
 current backend) and prints peak H memory, so README can state exactly where
